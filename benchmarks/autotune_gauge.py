@@ -1,13 +1,13 @@
 #!/usr/bin/env python
-"""Cold-start (K, eps) auto-tune validation (VERDICT r2 item 4).
+"""Cold-start (K, eps) auto-tune validation.
 
 Runs the probe-based joint search (``train/autotune.py``) at a given
 volume with NO hand-tuned inputs, then (optionally) trains the winning
 trained-kernel cell full-length and scores it against the auto-tuned HMC
 optimum on the shared eval harness — the same protocol as
-``trained_vs_hmc.py``.  Success criterion (r2 verdict): the cold-start
-recipe lands within ~5% of the hand-swept champion at 16x16 and transfers
-untouched to 32x32.
+``trained_vs_hmc.py``.  Success criterion: the cold-start recipe lands
+within ~5% of the hand-swept champion at 16x16 and transfers untouched to
+32x32.
 
 Usage:
   python benchmarks/autotune_gauge.py --size 16
@@ -64,10 +64,10 @@ def main(argv=None):
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
 
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.lattice.metropolis import thermalize
-    from l2hmc_tpu.train.autotune import tune_hmc, tune_l2hmc
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.lattice import u1
+    from l2hmc.lattice.metropolis import thermalize
+    from l2hmc.train.autotune import tune_hmc, tune_l2hmc
+    from l2hmc.train.gauge import (
         GaugeConfig, init_train_state, make_train_chunk,
     )
 
@@ -117,7 +117,7 @@ def main(argv=None):
         # second pass: a +-10% eps grid at the winning K, anchored ON the
         # winner (the coarse x0.8/1.0/1.2 grid straddles the optimum —
         # the 16x16 champion's eps=0.125 falls between its K=3 points)
-        from l2hmc_tpu.train.autotune import TuneResult as _TR
+        from l2hmc.train.autotune import TuneResult as _TR
 
         anchor = _TR(num_steps=l2_opt.num_steps, eps=l2_opt.eps,
                      score=0.0, accept=0.0, cells=())

@@ -1,14 +1,14 @@
 #!/usr/bin/env python
 """Beta-robustness campaign: autotune-driven head-to-heads off beta=4.
 
-VERDICT r3 item 3: every error-barred claim sits at one coupling
-(beta=4).  This driver makes the claim a property of the METHOD, not the
+An error-barred claim at one coupling (beta=4) says little about the
+method.  This script makes the claim a property of the METHOD, not the
 point: for each requested (size, beta) it
 
 1. cold-starts the joint (K, eps) search for BOTH samplers
    (``train/autotune.py`` via ``autotune_gauge``-equivalent calls, 2
-   probe seeds, refine pass — r3 item 7: zero hand-picked integrator
-   settings anywhere),
+   probe seeds, refine pass — zero hand-picked integrator settings
+   anywhere),
 2. runs the ``h2h_seeds`` interleaved multi-seed protocol at the tuned
    cells (independent trainings, >=12k-step evals, jackknife errors).
 
@@ -86,10 +86,10 @@ def main(argv=None):
                 "step size)")
 
     from benchmarks import h2h_seeds
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.lattice.metropolis import thermalize
-    from l2hmc_tpu.train.autotune import TuneResult, tune_hmc, tune_l2hmc
-    from l2hmc_tpu.train.gauge import GaugeConfig
+    from l2hmc.lattice import u1
+    from l2hmc.lattice.metropolis import thermalize
+    from l2hmc.train.autotune import TuneResult, tune_hmc, tune_l2hmc
+    from l2hmc.train.gauge import GaugeConfig
 
     _trace(f"devices: {jax.devices()}; size {args.size} beta {args.beta}")
     base = GaugeConfig(
@@ -111,8 +111,8 @@ def main(argv=None):
 
     t0 = time.perf_counter()
     if args.hmc_k > 0:
-        # reuse a previously auto-tuned optimum (recorded in RESULTS.md /
-        # a prior campaign JSON) — still tuner-produced, just cached
+        # reuse a previously auto-tuned optimum (from a prior campaign
+        # JSON) — still tuner-produced, just cached
         hmc_opt = TuneResult(num_steps=args.hmc_k, eps=args.hmc_eps,
                              score=0.0, accept=0.0, cells=())
         _trace(f"HMC optimum (cached): K={hmc_opt.num_steps} "

@@ -6,13 +6,12 @@ topological-charge tunneling: plain HMC gets stuck in a charge sector as
 beta grows, and the learned kernel is trained (charge loss,
 ``gauge_model.py:766-795``) to hop sectors.  The reference reports the
 per-step charge movement as ``charge_diff_op`` (``gauge_model.py:849-851``)
-but publishes no numbers.  This benchmark measures the claim end-to-end on
-the TPU:
+but publishes no numbers.  This benchmark measures the claim end-to-end:
 
   1. train the L2HMC sampler at the canonical 16x16 config (beta 2 -> 4),
   2. sample with the trained kernel at beta=4,
-  3. sample with HMC at its ESS-optimal step size (eps=0.10, RESULTS.md
-     sweep) and at the same trajectory length,
+  3. sample with HMC at a given step size (default eps=0.10) and at the
+     same trajectory length,
   4. report per-step tunneling rate  <|Q_{t+1} - Q_t|>,  the integrated
      autocorrelation time of Q, Q-ESS per wall-second, and <Q^2> against
      the exact finite-volume susceptibility.
@@ -45,7 +44,7 @@ def _trace(msg):
 
 def run_eval(cfg, params, x, beta, key, num_steps, chunk_size=500):
     """Timed eval: returns (Q trace (steps, chains), accept, wall_s, x)."""
-    from l2hmc_tpu.train.gauge import make_eval_chunk
+    from l2hmc.train.gauge import make_eval_chunk
 
     chunk = make_eval_chunk(cfg, chunk_size)
     # compile + thermalize one chunk outside the timed region
@@ -66,7 +65,7 @@ def run_eval(cfg, params, x, beta, key, num_steps, chunk_size=500):
 
 def charge_stats(q, wall, label):
     """Tunneling rate, tau_int, ESS/s for a (steps, chains) charge trace."""
-    from l2hmc_tpu.analysis import stats
+    from l2hmc.analysis import stats
 
     dq = np.abs(np.diff(q, axis=0))
     rate = float(dq.mean())
@@ -98,14 +97,15 @@ def main(argv=None):
     p.add_argument("--size", type=int, default=16)
     p.add_argument("--num_chains", type=int, default=128)
     p.add_argument("--hmc_eps", type=float, default=0.10,
-                   help="ESS-optimal from the RESULTS.md sweep")
+                   help="HMC step size (re-tune per device: "
+                        "benchmarks/hmc_ess_sweep.py)")
     p.add_argument("--charge_weight", type=float, default=1.0)
     p.add_argument("--num_steps", type=int, default=3, help="leapfrog steps")
     p.add_argument("--seed", type=int, default=42)
     args = p.parse_args(argv)
 
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.lattice import u1
+    from l2hmc.train.gauge import (
         GaugeConfig, init_train_state, make_train_chunk,
     )
 

@@ -4,9 +4,8 @@
 The multi-host production recipe, runnable on any mesh size:
 
 1. **Data-parallel L2HMC training** at 32x32 with the chain batch sharded
-   over the mesh 'data' axis — XLA inserts the gradient all-reduce over
-   ICI from the sharding annotations (the Horovod replacement, SURVEY
-   §5.8).  Weak-scaling efficiency is measured by running the identical
+   over the mesh 'data' axis — XLA inserts the gradient all-reduce from
+   the sharding annotations (the Horovod replacement, SURVEY §5.8).  Weak-scaling efficiency is measured by running the identical
    per-device load on 1 device and on all of them.
 2. **SMC over the beta ladder** with the particle population sharded over
    the same axis: reweighting is local, the systematic-resample gather and
@@ -14,13 +13,13 @@ The multi-host production recipe, runnable on any mesh size:
    (`dynamics/smc.py`).  The log-Z estimate is checked against the
    factorized analytic anchor.
 
-Without a real pod slice, run the mechanism end-to-end on virtual devices:
+Without several devices, run the mechanism end-to-end on virtual ones:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python benchmarks/config5_multihost.py --train_steps 50
 
 Prints one JSON line per phase.  On real multi-host hardware the same
-script measures true ICI/DCN scaling (`parallel.mesh.initialize_distributed`
+script measures true multi-device scaling (`parallel.mesh.initialize_distributed`
 brings up the process group from the launcher env).
 """
 
@@ -72,16 +71,16 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from l2hmc_tpu.dynamics.smc import (
+    from l2hmc.dynamics.smc import (
         make_u1_hmc_move, smc_beta_ladder, u1_log_z_exact_factorized,
         weighted_mean,
     )
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.parallel.mesh import (
+    from l2hmc.lattice import u1
+    from l2hmc.parallel.mesh import (
         chain_sharding, get_mesh, initialize_distributed, replicated,
         shard_train_state, train_state_shardings,
     )
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.train.gauge import (
         GaugeConfig, init_train_state, make_train_step,
     )
 
@@ -176,7 +175,7 @@ def main(argv=None):
         u1.random_links(ksmc, n_particles, shape), chain_sharding(mesh))
 
     if args.smc_move == "l2hmc":
-        from l2hmc_tpu.train.gauge import build_dynamics
+        from l2hmc.train.gauge import build_dynamics
 
         t_params, t_cfg = trained
         _, dyn, _ = build_dynamics(t_cfg)

@@ -1,12 +1,11 @@
 #!/usr/bin/env python
-"""Joint (num_leapfrog, eps) sweep for plaquette-ESS/s on the fused HMC chain.
+"""Joint (num_leapfrog, eps) sweep for plaquette-ESS/s on the whole-chain HMC.
 
-bench.py's ESS/s headline runs plain HMC on the fused Pallas leapfrog-chain
-kernel at the measured ESS-optimal eps for K=3 (RESULTS.md).  But the
-cost-normalized optimum is a JOINT property of (K, eps): transitions/s falls
-~1/K while the per-transition ESS ratio rises with trajectory length eps*K.
-This sweep measures effective plaquette samples/s across the grid on-chip
-and prints one JSON line per point plus a "best" line the headline config
+bench.py's ESS/s figure runs plain HMC on ``hmc_chain_u1_fused`` (the
+whole-chain CUDA kernel on a GPU).  The cost-normalized optimum is a JOINT
+property of (K, eps): transitions/s falls ~1/K while the per-transition
+ESS ratio rises with trajectory length eps*K.  This sweep measures
+effective plaquette samples/s across the grid on the device and prints one JSON line per point plus a "best" line the headline config
 can adopt.
 
 Usage: python benchmarks/hmc_ess_sweep.py [--size 16] [--chains 2048]
@@ -38,8 +37,8 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from l2hmc_tpu.analysis import stats
-    from l2hmc_tpu.dynamics.hmc import hmc_chain_u1_fused
+    from l2hmc.analysis import stats
+    from l2hmc.dynamics.hmc import hmc_chain_u1_fused
 
     # Grid: for each K, eps values bracketing the acceptance sweet spot.
     # The leapfrog energy error per trajectory grows with both K and eps,

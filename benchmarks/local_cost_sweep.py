@@ -1,10 +1,9 @@
 #!/usr/bin/env python
 """Sampling-cost sweep of the local-conditioner family at large volume.
 
-The r4 64x64 campaign measured the local (c8, k3, L2) cell at per-step
-quality 1.6x vs tuned HMC but cost ~2.1x the HMC transition — the
-volume decay is a COST problem (C=8 convs use ~6% of the TPU conv
-unit's 128-lane width), not physics.  Sampling throughput is
+The local (c8, k3, L2) conditioner at 64x64 buys per-step quality over
+tuned HMC at a transition cost well above HMC's: its volume decay is a
+COST problem (C=8 convs are narrow), not physics.  Sampling throughput is
 weight-independent, so the cost frontier of the family can be mapped in
 seconds per variant without training: this sweep times
 ``make_eval_chunk`` for local variants (channels x layers x kernel),
@@ -47,8 +46,8 @@ def main(argv=None):
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
 
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.lattice import u1
+    from l2hmc.train.gauge import (
         GaugeConfig, init_train_state, make_eval_chunk,
     )
 

@@ -1,12 +1,12 @@
 #!/usr/bin/env python
-"""Parallel tempering vs the instanton hop at the freezing point (r5).
+"""Parallel tempering vs the instanton hop at the freezing point.
 
-VERDICT r4 item 6: ``dynamics/tempering.py`` shipped exact and tested
-but its dismissal ("O(R^2) ladder round trips for ~R-x cost") was argued,
-never measured — and PT is the only shipped topological mechanism that
+``dynamics/tempering.py`` is exact and tested, but the case against it
+("O(R^2) ladder round trips for ~R-x cost") is an argument until it is
+measured — and PT is the only shipped topological mechanism that
 generalizes beyond 2-D U(1) (the hop's closed form does not).  This
 harness settles it with the topo_ensemble protocol at 16x16 beta=5 (the
-freezing-regime row where the hop wins ~165x):
+freezing regime):
 
 - samplers: tuned HMC, HMC+hop, and a PT ladder (R rungs beta 5 -> 2,
   all rungs' wall-clock counted — they run as ONE flat (R*C, d) kernel);
@@ -72,13 +72,13 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from benchmarks.trained_vs_hmc import trace_stats
-    from l2hmc_tpu.analysis import stats as _st
-    from l2hmc_tpu.dynamics import topo
-    from l2hmc_tpu.dynamics.tempering import PTConfig, make_pt_chunk
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.lattice.metropolis import thermalize
-    from l2hmc_tpu.ops.wilson import make_potential_fn
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.analysis import stats as _st
+    from l2hmc.dynamics import topo
+    from l2hmc.dynamics.tempering import PTConfig, make_pt_chunk
+    from l2hmc.lattice import u1
+    from l2hmc.lattice.metropolis import thermalize
+    from l2hmc.ops.wilson import make_potential_fn
+    from l2hmc.train.gauge import (
         GaugeConfig, init_train_state, make_eval_chunk,
     )
 

@@ -4,8 +4,9 @@
 
 Measures sampling throughput with the chain batch sharded over 1, 2, ..., N
 mesh devices, holding per-device chain count fixed (weak scaling — the
-regime that matters for ensemble MCMC).  On a real pod slice the mesh spans
-chips/hosts over ICI/DCN; without one, run on virtual CPU devices to
+regime that matters for ensemble MCMC).  On real hardware the mesh spans
+the cards of a host (and hosts); without several, run on virtual CPU
+devices to
 validate the mechanism end-to-end:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -60,7 +61,7 @@ def verify_psum_topology(mesh):
     import jax.numpy as jnp
     import numpy as np
 
-    from l2hmc_tpu.parallel.mesh import chain_sharding
+    from l2hmc.parallel.mesh import chain_sharding
 
     n = int(np.prod(mesh.devices.shape))
     idx = jax.device_put(
@@ -111,12 +112,12 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.parallel.mesh import (
+    from l2hmc.lattice import u1
+    from l2hmc.parallel.mesh import (
         chain_sharding, get_mesh, is_primary, shard_train_state,
         train_state_shardings,
     )
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.train.gauge import (
         GaugeConfig, build_dynamics, init_train_state, make_train_step,
     )
 

@@ -36,9 +36,9 @@ def main(argv=None):
     if args.eps == 0.0:
         args.eps = 0.32 / args.l
 
-    # real-pair representation: the TPU runtime rejects complex dtypes
-    # (ops/cmat.py); trajectory-identical to the complex form (tested)
-    from l2hmc_tpu.lattice.sun_nd import (
+    # real-pair representation (ops/cmat.py); trajectory-identical to the
+    # complex form (tested)
+    from l2hmc.lattice.sun_nd import (
         avg_plaq_nd_pairs, improved_action_nd_pairs, random_links_nd_pairs,
         sun_nd_hmc_transition_pairs, sun_plaq_strong_coupling,
         wilson_action_nd_pairs,

@@ -11,7 +11,7 @@ family: the exact winding (instanton-hop) proposal of
 Protocol = the h2h_seeds campaign standard:
 - every sampler advances its own 2048-chain batch from the same
   Metropolis-thermalized state;
-- timed chunks are INTERLEAVED round-robin (a/b/c/a/b/c...) so tunnel
+- timed chunks are INTERLEAVED round-robin (a/b/c/a/b/c...) so clock
   drift hits all samplers equally;
 - the hop cost is INSIDE the timed chunk (all ensemble cost counted);
 - n_reps independent repetitions, jackknife error bars on every ratio.
@@ -63,7 +63,7 @@ def load_champion(size):
     """(cfg, params) from the shipped npz, or None if absent/mismatched."""
     import json as _json
 
-    from l2hmc_tpu.train.gauge import GaugeConfig, init_train_state
+    from l2hmc.train.gauge import GaugeConfig, init_train_state
 
     path = Path(__file__).parent / "champion_16x16.npz"
     if not path.exists():
@@ -111,7 +111,7 @@ def main(argv=None):
     p.add_argument("--champ_train_hops", action="store_true",
                    help="train the inline champion with instanton hops in "
                         "the training chain (required at beta>=5: frozen "
-                        "training distribution, RESULTS.md r4)")
+                        "training distribution)")
     p.add_argument("--champ_seed", type=int, default=11,
                    help="inline-training seed (retrain-on-detect: pick "
                         "another if end acc lands in the beta=5 "
@@ -120,10 +120,10 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from benchmarks.trained_vs_hmc import trace_stats
-    from l2hmc_tpu.dynamics import topo
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.lattice.metropolis import thermalize
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.dynamics import topo
+    from l2hmc.lattice import u1
+    from l2hmc.lattice.metropolis import thermalize
+    from l2hmc.train.gauge import (
         GaugeConfig, init_train_state, make_eval_chunk,
     )
 
@@ -154,7 +154,7 @@ def main(argv=None):
     ]
     champ = None if args.no_champion else load_champion(args.size)
     if champ is None and args.train_champion and not args.no_champion:
-        from l2hmc_tpu.train.gauge import make_train_chunk
+        from l2hmc.train.gauge import make_train_chunk
 
         tcfg = GaugeConfig(
             time_size=args.size, space_size=args.size, num_chains=128,
@@ -228,7 +228,7 @@ def main(argv=None):
             # pooled multi-chain tau_int(Q) (analysis/stats.py, r3 item 6):
             # at large tau the per-chain Sokal window is noise; pooling the
             # 64 estimator chains extends the reliable range ~64x
-            from l2hmc_tpu.analysis import stats as _st
+            from l2hmc.analysis import stats as _st
 
             tau_q, tau_ok = _st.pooled_integrated_time(q)
             qt["tau_pooled"] = round(tau_q, 2)
@@ -288,7 +288,7 @@ def main(argv=None):
             [r[tag]["plaq_mean"] for r in per_rep])), 6)
         summary[tag] = s
 
-    from l2hmc_tpu.lattice.u1 import (
+    from l2hmc.lattice.u1 import (
         topological_susceptibility_exact, u1_plaq_exact,
     )
 

@@ -34,8 +34,8 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.train import gauge as G
+    from l2hmc.lattice import u1
+    from l2hmc.train import gauge as G
 
     rows = []
     key = jax.random.PRNGKey(0)

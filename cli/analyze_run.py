@@ -27,8 +27,8 @@ def main(argv=None):
                    help="beta for the exact-plaquette reference line")
     args = p.parse_args(argv)
 
-    from l2hmc_tpu.analysis.observables import analyze_run
-    from l2hmc_tpu.analysis.plots import make_run_plots
+    from l2hmc.analysis.observables import analyze_run
+    from l2hmc.analysis.plots import make_run_plots
 
     report = analyze_run(args.run_dir, args.therm_frac)
     print(f"wrote {Path(args.run_dir) / 'analysis.json'}")
@@ -63,7 +63,7 @@ def main(argv=None):
     if args.plots:
         exact = None
         if args.beta is not None:
-            from l2hmc_tpu.lattice import u1
+            from l2hmc.lattice import u1
 
             exact = float(u1.u1_plaq_exact(args.beta))
         written = make_run_plots(args.run_dir, exact)
@@ -72,4 +72,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from l2hmc.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     raise SystemExit(main())

@@ -23,7 +23,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
-from l2hmc_tpu.utils.flags import ArgfileParser  # noqa: E402
+from l2hmc.utils.flags import ArgfileParser  # noqa: E402
 
 
 def build_parser():
@@ -50,7 +50,7 @@ def build_parser():
     p.add_argument("--warmup_steps", type=int, default=100)
     p.add_argument("--clip_grad", type=float, default=10.0)
     # forward-KL (max-likelihood) fine-tuning phase on exact HMC samples:
-    # targets KL(p||q), which governs hybrid-chain acceptance (RESULTS.md)
+    # targets KL(p||q), which governs hybrid-chain acceptance
     p.add_argument("--fkl_steps", type=int, default=0,
                    help="fine-tune steps with loss = reverse_kl + "
                         "fkl_weight * forward_kl(HMC samples)")
@@ -88,10 +88,10 @@ def main(argv=None):
     import numpy as np
     import optax
 
-    from l2hmc_tpu.dynamics import flow as F
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.train import checkpoint as ckpt
-    from l2hmc_tpu.utils.io import (MetricsLogger, log, make_run_dir,
+    from l2hmc.dynamics import flow as F
+    from l2hmc.lattice import u1
+    from l2hmc.train import checkpoint as ckpt
+    from l2hmc.utils.io import (MetricsLogger, log, make_run_dir,
                                     save_params_json)
 
     if args.resume:
@@ -176,7 +176,7 @@ def main(argv=None):
 
     # graceful shutdown: SIGTERM (e.g. `timeout`-killed runs) falls through
     # to the checkpoint save instead of losing the tail
-    from l2hmc_tpu.utils.io import install_sigterm_handler
+    from l2hmc.utils.io import install_sigterm_handler
 
     install_sigterm_handler()
 
@@ -204,7 +204,7 @@ def main(argv=None):
 
         # ---- phase 2 (optional): forward-KL fine-tune on exact HMC samples
         if args.fkl_steps > 0:
-            from l2hmc_tpu.dynamics.hmc import hmc_chain_u1_fused
+            from l2hmc.dynamics.hmc import hmc_chain_u1_fused
 
             key, kb = jax.random.split(key)
             n_chains = args.fkl_buffer // 2
@@ -321,4 +321,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from l2hmc.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     raise SystemExit(main())

@@ -23,7 +23,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
-from l2hmc_tpu.utils.flags import ArgfileParser  # noqa: E402
+from l2hmc.utils.flags import ArgfileParser  # noqa: E402
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -55,7 +55,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "cells around its trajectory length and overrides "
                         "--num_steps/--eps with the winner; implies "
                         "--eps_fixed.  Measured at 16x16: lands within 5% "
-                        "of the hand-swept champion (RESULTS.md)")
+                        "of the hand-swept champion")
     p.add_argument("--autotune_probe_steps", type=int, default=8000,
                    help="probe-training depth per autotune cell (coarse-K "
                         "acceptance rescue needs ~10k steps to mature)")
@@ -89,7 +89,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="detect-and-retrain threshold on end-of-training "
                         "acceptance (0 = off).  beta >= 5 trainings land in "
                         "two separable basins (end acc ~0.55 failed vs "
-                        "~0.87 converged, RESULTS.md); 0.7 auto-reseeds "
+                        "~0.87 converged); 0.7 auto-reseeds "
                         "the failures so the shipped recipe is "
                         "unconditional.  Attempts are recorded in "
                         "params.json")
@@ -147,7 +147,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "Metropolis sweeps at the eval beta (the standard "
                         "lattice warm start; required at 64x64 where a fast "
                         "anneal leaves chains in a >10k-step metastable "
-                        "plateau -- RESULTS.md)")
+                        "plateau)")
     p.add_argument("--eval_therm_sweeps", type=int, default=2000,
                    help="Metropolis sweeps for --eval_init metropolis")
     p.add_argument("--restore", action="store_true")
@@ -179,7 +179,7 @@ def resolve_eps(a) -> float:
 
 
 def flags_to_config(a):
-    from l2hmc_tpu.train.gauge import GaugeConfig
+    from l2hmc.train.gauge import GaugeConfig
 
     return GaugeConfig(
         time_size=a.time_size, space_size=a.space_size,
@@ -210,16 +210,16 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    from l2hmc_tpu.analysis import stats
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.parallel.mesh import (
+    from l2hmc.analysis import stats
+    from l2hmc.lattice import u1
+    from l2hmc.parallel.mesh import (
         get_mesh, initialize_distributed, shard_train_state,
     )
-    from l2hmc_tpu.train import checkpoint as ckpt
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.train import checkpoint as ckpt
+    from l2hmc.train.gauge import (
         init_train_state, make_eval_chunk, make_train_chunk,
     )
-    from l2hmc_tpu.utils.io import (
+    from l2hmc.utils.io import (
         MetricsLogger, install_sigterm_handler, log, make_run_dir,
         save_params_json,
     )
@@ -233,7 +233,7 @@ def main(argv=None):
     save_params_json(run_dir, vars(args))
     log(f"run dir: {run_dir}")
     log(f"devices: {jax.devices()}")
-    # volume advisory (RESULTS.md, 128x128 study): per-step S/T/Q output
+    # volume advisory (128x128 study): per-step S/T/Q output
     # jumps enter the Hamiltonian summed over x_dim links, and the eps
     # acceptance cliff tightens with volume — default settings that train
     # fine at L<=64 freeze the chain at larger L
@@ -244,7 +244,7 @@ def main(argv=None):
             f"eps_trainable={cfg.eps_trainable} — at this volume the "
             "dead-gradient trap closes easily; use --eps_warmup_steps "
             "(dual-averaging warmup finds the stable eps automatically) "
-            "and a small lr (e.g. --lr_init 2e-5, RESULTS.md)")
+            "and a small lr (e.g. --lr_init 2e-5)")
 
     # --autotune composes badly with --restore: the search could change
     # num_steps (masks shape (K, d)) after a checkpoint already fixed it,
@@ -260,8 +260,8 @@ def main(argv=None):
         # cold-start joint (K, eps) search (train/autotune.py): tune HMC's
         # optimum at the target distribution, then the trained kernel's
         # coarse-K cells around its trajectory length
-        from l2hmc_tpu.lattice.metropolis import thermalize
-        from l2hmc_tpu.train.autotune import tune_hmc, tune_l2hmc
+        from l2hmc.lattice.metropolis import thermalize
+        from l2hmc.train.autotune import tune_hmc, tune_l2hmc
 
         key, k1, k2, k3 = jax.random.split(key, 4)
         x0_t = u1.random_links(k1, cfg.num_chains, cfg.shape)
@@ -336,7 +336,7 @@ def main(argv=None):
                         jax.block_until_ready(state.x)
                     # reference parity: dump the op-view digest right after
                     # the traced window (gauge_model.py:1048-1071)
-                    from l2hmc_tpu.analysis.profile_digest import write_digest
+                    from l2hmc.analysis.profile_digest import write_digest
 
                     digest = write_digest(
                         tdir, run_dir if c == 0 else tdir)
@@ -395,7 +395,7 @@ def main(argv=None):
     # framework's topological-channel winner, from the product surface
     if args.run_steps:
         if args.eval_hops > 0:
-            from l2hmc_tpu.dynamics import topo
+            from l2hmc.dynamics import topo
 
             eval_chunk = topo.make_hop_eval_chunk(
                 cfg, min(args.run_steps, 1000), n_hops=args.eval_hops,
@@ -407,7 +407,7 @@ def main(argv=None):
             if args.eval_init == "train":
                 x = state.x
             elif args.eval_init == "metropolis":
-                from l2hmc_tpu.lattice.metropolis import thermalize
+                from l2hmc.lattice.metropolis import thermalize
 
                 x = jax.jit(
                     lambda x, k: thermalize(
@@ -481,4 +481,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from l2hmc.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     raise SystemExit(main())

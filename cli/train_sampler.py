@@ -24,7 +24,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
-from l2hmc_tpu.utils.flags import ArgfileParser  # noqa: E402
+from l2hmc.utils.flags import ArgfileParser  # noqa: E402
 
 
 def build_parser():
@@ -69,7 +69,7 @@ def build_parser():
 def make_target(args):
     import numpy as np
 
-    from l2hmc_tpu import targets as T
+    from l2hmc import targets as T
 
     if args.target == "scg":
         return T.scg_2d(), None
@@ -101,15 +101,15 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from l2hmc_tpu.analysis import stats
-    from l2hmc_tpu.dynamics.hmc import hmc_chain
-    from l2hmc_tpu.train import schedules
-    from l2hmc_tpu.train.sampler import (
+    from l2hmc.analysis import stats
+    from l2hmc.dynamics.hmc import hmc_chain
+    from l2hmc.train import schedules
+    from l2hmc.train.sampler import (
         SamplerConfig, init_sampler_state, make_sample_chain,
         make_sampler_train_chunk,
     )
-    from l2hmc_tpu.train import checkpoint as ckpt
-    from l2hmc_tpu.utils.io import (
+    from l2hmc.train import checkpoint as ckpt
+    from l2hmc.utils.io import (
         MetricsLogger, install_sigterm_handler, log, make_run_dir,
         save_params_json,
     )
@@ -224,4 +224,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from l2hmc.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     raise SystemExit(main())

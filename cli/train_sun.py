@@ -23,7 +23,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
-from l2hmc_tpu.utils.flags import ArgfileParser  # noqa: E402
+from l2hmc.utils.flags import ArgfileParser  # noqa: E402
 
 
 def build_parser():
@@ -65,15 +65,15 @@ def main(argv=None):
     import numpy as np
     import optax
 
-    from l2hmc_tpu.dynamics.sun_hmc import (
+    from l2hmc.dynamics.sun_hmc import (
         sun_hmc_transition, sun_plaq_exact,
     )
-    from l2hmc_tpu.dynamics.sun_l2hmc import (
+    from l2hmc.dynamics.sun_l2hmc import (
         SUNL2HMCConfig, init_sun_l2hmc, make_sun_train_step,
         plaq_trace_distance,
     )
-    from l2hmc_tpu.lattice.sun import random_sun, sun_plaquette
-    from l2hmc_tpu.utils.io import (
+    from l2hmc.lattice.sun import random_sun, sun_plaquette
+    from l2hmc.utils.io import (
         MetricsLogger, install_sigterm_handler, make_run_dir, log,
     )
 
@@ -85,7 +85,7 @@ def main(argv=None):
 
     if args.dims is not None:
         # d-dimensional path (4-D SU(3) etc.): HMC sampling via sun_nd.
-        from l2hmc_tpu.lattice.sun_nd import (
+        from l2hmc.lattice.sun_nd import (
             sun_nd_hmc_chain, sun_plaq_strong_coupling,
         )
 
@@ -119,29 +119,16 @@ def main(argv=None):
     n, beta = args.n, args.beta
     exact = sun_plaq_exact(n, beta)
     key, k0 = jax.random.split(key)
-    # complex dtypes are rejected by the TPU runtime -> (re, im) pair
-    # representation off-CPU (ops/cmat.py; trajectory-identical, tested)
-    real_pairs = jax.default_backend() != "cpu"
-    if real_pairs:
-        from l2hmc_tpu.lattice.sun_nd import (
-            avg_plaq_nd_pairs as avg_plaq, random_links_nd_pairs,
-        )
+    u = random_sun(
+        k0, n, (args.num_samples, args.time_size, args.space_size, 2),
+        scale=0.5)
 
-        u = random_links_nd_pairs(
-            k0, n, args.num_samples, (args.time_size, args.space_size),
-            scale=0.5)
-    else:
-        u = random_sun(
-            k0, n, (args.num_samples, args.time_size, args.space_size, 2),
-            scale=0.5)
-
-        def avg_plaq(links):
-            tr = jnp.trace(sun_plaquette(links), axis1=-2, axis2=-1).real / n
-            return jnp.mean(tr, axis=(-2, -1))
+    def avg_plaq(links):
+        tr = jnp.trace(sun_plaquette(links), axis1=-2, axis2=-1).real / n
+        return jnp.mean(tr, axis=(-2, -1))
 
     cfg = SUNL2HMCConfig(n=n, num_steps=args.num_steps, eps_init=args.eps,
                          hidden=args.num_hidden, eps_trainable=not args.hmc,
-                         real_pairs=real_pairs,
                          learn_position=args.learn_position and not args.hmc)
     opt = optax.chain(
         optax.clip_by_global_norm(1.0),
@@ -182,7 +169,7 @@ def main(argv=None):
                     f"acc={rec['accept_prob']:.3f} eps={rec['eps']:.4f}")
         except (KeyboardInterrupt, SystemExit):
             # save-and-exit on interrupt/SIGTERM (gauge_model.py:1295-1301)
-            from l2hmc_tpu.train import checkpoint as ckpt
+            from l2hmc.train import checkpoint as ckpt
 
             log(f"interrupted at step {done}; checkpointing...")
             ckpt.save_checkpoint(run_dir / "checkpoints",
@@ -194,17 +181,7 @@ def main(argv=None):
     @jax.jit
     def eval_chunk(params, u, k):
         def body(u, kk):
-            if args.hmc and real_pairs:
-                from l2hmc_tpu.lattice.sun_nd import (
-                    sun_nd_hmc_transition_pairs, wilson_action_nd_pairs,
-                )
-
-                out = sun_nd_hmc_transition_pairs(
-                    u, kk, args.eps, args.num_steps,
-                    lambda v: wilson_action_nd_pairs(v, beta))
-                links, prob = out.links, out.accept_prob
-                dist = plaq_trace_distance(u, links)
-            elif args.hmc:
+            if args.hmc:
                 out = sun_hmc_transition(u, beta, kk, args.eps,
                                          args.num_steps, n)
                 links, prob = out.links, out.accept_prob
@@ -240,4 +217,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from l2hmc.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     raise SystemExit(main())

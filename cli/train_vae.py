@@ -33,7 +33,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).parent.parent))
 
-from l2hmc_tpu.utils.flags import ArgfileParser  # noqa: E402
+from l2hmc.utils.flags import ArgfileParser  # noqa: E402
 
 
 def build_parser():
@@ -76,11 +76,11 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    from l2hmc_tpu.train.vae import (
+    from l2hmc.train.vae import (
         VAEConfig, ais_log_likelihood, load_digits_binarized,
         make_vae_train_step, posterior_sampler_autocovariance,
     )
-    from l2hmc_tpu.utils.io import (
+    from l2hmc.utils.io import (
         MetricsLogger, install_sigterm_handler, log, make_run_dir,
         save_params_json,
     )
@@ -143,7 +143,7 @@ def main(argv=None):
                     logger.write(rec)
     except (KeyboardInterrupt, SystemExit):
         # save-and-exit on interrupt/SIGTERM (gauge_model.py:1295-1301)
-        from l2hmc_tpu.train import checkpoint as ckpt
+        from l2hmc.train import checkpoint as ckpt
 
         log(f"interrupted at step {step}; checkpointing...")
         ckpt.save_checkpoint(run_dir / "checkpoints", state, step)
@@ -175,4 +175,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from l2hmc.utils.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     raise SystemExit(main())

@@ -35,8 +35,8 @@ def main(argv=None):
     import jax.numpy as jnp
     import optax
 
-    from l2hmc_tpu.dynamics import flow as F
-    from l2hmc_tpu.lattice import u1
+    from l2hmc.dynamics import flow as F
+    from l2hmc.lattice import u1
 
     cfg = F.FlowConfig(time_size=args.size, space_size=args.size,
                        num_layers=12, n_mix=4, hidden_channels=16)

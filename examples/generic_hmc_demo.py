@@ -26,9 +26,9 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    from l2hmc_tpu.analysis import stats
-    from l2hmc_tpu.dynamics.hmc import hmc_chain
-    from l2hmc_tpu.targets import Gaussian, gen_ring, gmm_axes, scg_2d
+    from l2hmc.analysis import stats
+    from l2hmc.dynamics.hmc import hmc_chain
+    from l2hmc.targets import Gaussian, gen_ring, gmm_axes, scg_2d
 
     zoo = [
         ("gaussian_4d", Gaussian.create(np.zeros(4), np.eye(4)), 0.5),

@@ -27,7 +27,7 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    from l2hmc_tpu.lattice.ising import ising_chain
+    from l2hmc.lattice.ising import ising_chain
 
     t_c = 2.0 / np.log(1.0 + np.sqrt(2.0))
     key = jax.random.PRNGKey(args.seed)

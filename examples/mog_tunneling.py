@@ -3,8 +3,8 @@
 
 Script form of ``MOGExperiment.ipynb``: a 2-D mixture of Gaussians with
 well-separated modes.  HMC gets trapped in one mode (tunneling rate ~0);
-the temperature-annealed learned kernel hops between them ~500x more
-often (RESULTS.md: 0.931 vs 0.0019 hops/step).
+the temperature-annealed learned kernel hops between them far more
+often (hops per step, a per-step statistic).
 
 Thin wrapper over the canonical CLI recipe (`cli/train_sampler.py
 --target gmm_axes --annealing`) — training with tunneling-rate-driven
@@ -30,7 +30,7 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     from cli.train_sampler import main as sampler_main
-    from l2hmc_tpu.utils.io import latest_run_dir
+    from l2hmc.utils.io import latest_run_dir
 
     sampler_main([
         "--target", "gmm_axes", "--annealing",

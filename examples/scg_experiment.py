@@ -28,10 +28,10 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    from l2hmc_tpu.analysis import stats
-    from l2hmc_tpu.dynamics.hmc import hmc_chain
-    from l2hmc_tpu.targets import scg_2d
-    from l2hmc_tpu.train.sampler import (
+    from l2hmc.analysis import stats
+    from l2hmc.dynamics.hmc import hmc_chain
+    from l2hmc.targets import scg_2d
+    from l2hmc.train.sampler import (
         SamplerConfig, init_sampler_state, make_sample_chain,
         make_sampler_train_chunk,
     )

@@ -30,8 +30,8 @@ def main(argv=None):
     import jax
     import numpy as np
 
-    from l2hmc_tpu.lattice import u1
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.lattice import u1
+    from l2hmc.train.gauge import (
         GaugeConfig, init_train_state, make_eval_chunk, make_train_chunk,
     )
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from l2hmc_tpu.analysis import stats
+from l2hmc.analysis import stats
 
 
 def ar1(n, rho, seed=0):
@@ -114,7 +114,7 @@ def ar1_batch(t, c, rho, seed=0):
 
 def test_pooled_integrated_time_short_chains():
     """Pooled tau_int recovers the analytic AR(1) tau where a single
-    short trace is unreliable (the 32x32 Q regime, VERDICT r3 item 6)."""
+    short trace is unreliable (the 32x32 Q regime)."""
     rho = 0.9
     tau_exact = (1 + rho) / (1 - rho)          # 19.0
     x = ar1_batch(400, 512, rho, seed=1)

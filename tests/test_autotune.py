@@ -1,7 +1,7 @@
 """Auto-tuner (train/autotune.py) — joint (K, eps) search tests.
 
-On-chip validation of the full-size search against the hand-swept champion
-is the r3 campaign's job (RESULTS.md); these tests check the mechanism on
+Validation of the full-size search against the hand-swept champion needs
+the device; these tests check the mechanism on
 a small lattice: DA lands eps in a sane band, every (K, eps-grid) cell is
 probed and scored, and the trained-kernel search anchors its eps grid at
 lambda* = K*eps*.
@@ -13,9 +13,9 @@ import jax
 import numpy as np
 import pytest
 
-from l2hmc_tpu.train.autotune import TuneResult, _lag1_ess, tune_hmc, tune_l2hmc
-from l2hmc_tpu.train.gauge import GaugeConfig, init_train_state
-from l2hmc_tpu.lattice import u1
+from l2hmc.train.autotune import TuneResult, _lag1_ess, tune_hmc, tune_l2hmc
+from l2hmc.train.gauge import GaugeConfig, init_train_state
+from l2hmc.lattice import u1
 
 
 @pytest.fixture(scope="module")

@@ -7,9 +7,9 @@ import numpy as np
 import pytest
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from l2hmc_tpu.lattice import u1
-from l2hmc_tpu.parallel.domain import make_domain_action
-from l2hmc_tpu.parallel.mesh import get_mesh
+from l2hmc.lattice import u1
+from l2hmc.parallel.domain import make_domain_action
+from l2hmc.parallel.mesh import get_mesh
 
 SHAPE = u1.LatticeShape(16, 16)
 
@@ -68,7 +68,7 @@ def test_domain_observables(mesh, sharded_links):
 
 def test_domain_end_to_end_hmc(mesh, key):
     """HMC on the domain-sharded action samples the right plaquette."""
-    from l2hmc_tpu.dynamics.hmc import hmc_chain
+    from l2hmc.dynamics.hmc import hmc_chain
 
     dom = make_domain_action(mesh, SHAPE)
     batch = 8
@@ -96,8 +96,8 @@ def test_full_transition_domain_sharded_matches_replicated(key):
     `lattice_sharding` (batch over 'data', flat lattice over 'space') is
     bit-identical (to f32 roundoff) to the replicated run: GSPMD inserts
     the conv/roll halo exchanges and per-chain reduction psums itself."""
-    from l2hmc_tpu.parallel.mesh import lattice_sharding, replicated
-    from l2hmc_tpu.train.gauge import GaugeConfig, build_dynamics, init_train_state
+    from l2hmc.parallel.mesh import lattice_sharding, replicated
+    from l2hmc.train.gauge import GaugeConfig, build_dynamics, init_train_state
 
     mesh = get_mesh(num_data=2, num_space=4)
     cfg = GaugeConfig(time_size=8, space_size=8, num_chains=4, num_steps=2,

@@ -14,16 +14,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.dynamics.l2hmc import (
+from l2hmc.dynamics.l2hmc import (
     DynamicsConfig,
     init_dynamics_params,
     make_dynamics,
     make_masks,
     time_encoding,
 )
-from l2hmc_tpu.dynamics.hmc import hmc_transition, leapfrog
-from l2hmc_tpu.networks.nets import MLPNetSpec, make_mlp_net
-from l2hmc_tpu.targets import scg_2d
+from l2hmc.dynamics.hmc import hmc_transition, leapfrog
+from l2hmc.networks.nets import MLPNetSpec, make_mlp_net
+from l2hmc.targets import scg_2d
 
 X_DIM = 4
 BATCH = 6
@@ -197,7 +197,7 @@ def test_detailed_balance_hmc_mode(key):
 def test_log_eps_parametrization(key):
     """utils/dynamics.py:51-60 parity: eps stored as log, always positive."""
     cfg, params, dyn, _ = build(key, use_log_eps=True)
-    from l2hmc_tpu.dynamics.l2hmc import get_eps
+    from l2hmc.dynamics.l2hmc import get_eps
 
     eps = get_eps(params, cfg)
     np.testing.assert_allclose(float(eps), 0.1, rtol=1e-5)
@@ -237,7 +237,7 @@ def test_chain_operator(key):
 
 
 def _build_u1(key, lt=4, lx=4, num_steps=3, eps=0.2, perturb=0.5):
-    from l2hmc_tpu.lattice import u1 as u1mod
+    from l2hmc.lattice import u1 as u1mod
 
     shape = u1mod.LatticeShape(lt, lx)
     d = shape.x_dim
@@ -261,7 +261,7 @@ def _build_u1(key, lt=4, lx=4, num_steps=3, eps=0.2, perturb=0.5):
 
 
 def test_u1_circle_scale_properties(key):
-    from l2hmc_tpu.dynamics.l2hmc import make_dynamics as _  # noqa: F401
+    from l2hmc.dynamics.l2hmc import make_dynamics as _  # noqa: F401
     import numpy as _np
 
     # access circle_scale through a tiny kernel build
@@ -273,7 +273,7 @@ def test_u1_reversibility(key):
     """Torus kernel: forward then backward returns the start, with the
     wrap applied inside the update."""
     cfg, params, dyn, shape = _build_u1(key)
-    from l2hmc_tpu.lattice import u1 as u1mod
+    from l2hmc.lattice import u1 as u1mod
 
     x = u1mod.random_links(key, BATCH, shape)
     v = jax.random.normal(jax.random.fold_in(key, 1), x.shape)
@@ -313,7 +313,7 @@ def test_u1_kernel_detailed_balance_vs_metropolis(key):
     """End-to-end stationarity: the u1 kernel with NONTRIVIAL nets must
     reproduce the exact plaquette on a 4x4 lattice at beta=2 (the flat
     kernel + wrap fails this by construction)."""
-    from l2hmc_tpu.lattice import u1 as u1mod
+    from l2hmc.lattice import u1 as u1mod
 
     cfg, params, dyn, shape = _build_u1(key, lt=4, lx=4, num_steps=3,
                                         eps=0.15, perturb=0.4)

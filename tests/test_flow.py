@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.dynamics import flow as F
-from l2hmc_tpu.lattice import u1
+from l2hmc.dynamics import flow as F
+from l2hmc.lattice import u1
 
 
 def _cfg(**kw):

@@ -10,14 +10,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.train.gauge import (
+from l2hmc.train.gauge import (
     GaugeConfig,
     init_train_state,
     make_train_chunk,
     make_train_step,
 )
-from l2hmc_tpu.train import checkpoint as ckpt
-from l2hmc_tpu.parallel.mesh import (
+from l2hmc.train import checkpoint as ckpt
+from l2hmc.parallel.mesh import (
     chain_sharding,
     get_mesh,
     replicated,
@@ -98,7 +98,7 @@ def test_sharded_scan_chunk(key):
 
 
 def test_metrics_logger(tmp_path, capsys):
-    from l2hmc_tpu.utils.io import MetricsLogger
+    from l2hmc.utils.io import MetricsLogger
 
     logger = MetricsLogger(tmp_path, print_every=1)
     logger.write({"step": 10, "loss": -1.5, "accept_prob": 0.7, "plaqs": 0.65})
@@ -127,7 +127,7 @@ def test_cli_config_mapping():
 
 
 def test_run_dir_numbering(tmp_path):
-    from l2hmc_tpu.utils.io import make_run_dir
+    from l2hmc.utils.io import make_run_dir
 
     d1 = make_run_dir(tmp_path)
     d2 = make_run_dir(tmp_path)
@@ -156,7 +156,7 @@ def test_vae_cli_smoke(tmp_path):
 
 def test_variable_summaries(tmp_path):
     """utils/tf_logging.py:74-86 parity: per-variable mean/std/min/max."""
-    from l2hmc_tpu.utils.io import MetricsLogger, variable_summaries
+    from l2hmc.utils.io import MetricsLogger, variable_summaries
 
     tree = {"net": {"w": jnp.arange(6.0).reshape(2, 3), "b": jnp.zeros(3)}}
     stats = variable_summaries(tree)
@@ -173,7 +173,7 @@ def test_variable_summaries(tmp_path):
 
 def test_dtypes_switch(monkeypatch):
     """utils/config.py:26-27 parity: FLOAT/NP_FLOAT from L2HMC_FLOAT."""
-    from l2hmc_tpu.utils import dtypes
+    from l2hmc.utils import dtypes
 
     assert dtypes.FLOAT == np.float32 and dtypes.NP_FLOAT == np.float32
     monkeypatch.setenv("L2HMC_FLOAT", "f64")
@@ -202,7 +202,7 @@ def test_profile_digest_from_real_trace(tmp_path):
     import jax
     import jax.numpy as jnp
 
-    from l2hmc_tpu.analysis.profile_digest import (
+    from l2hmc.analysis.profile_digest import (
         digest_trace, format_table, write_digest,
     )
 
@@ -245,7 +245,7 @@ def test_cli_autotune_flags_parse():
 
 
 def test_gauge_cli_eval_hops_smoke(tmp_path):
-    """CLI-only hop eval (VERDICT r4 item 2): --eval_hops reaches the eval
+    """CLI-only hop eval: --eval_hops reaches the eval
     protocol, surfaces hop metrics + pooled tau in the summary json, and
     the offline analyze CLI reads them back."""
     sys.path.insert(0, str(Path(__file__).parent.parent / "cli"))

@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.lattice import (
+from l2hmc.lattice import (
     LatticeShape,
     avg_plaquette,
     make_potential_fn,
@@ -149,7 +149,7 @@ def test_action_shift_invariance(key):
 
 
 def test_wilson_loop_1x1_is_plaquette(key):
-    from l2hmc_tpu.lattice import wilson_loop_sums
+    from l2hmc.lattice import wilson_loop_sums
 
     links = to_links(random_links(key, 2, SHAPE), SHAPE)
     np.testing.assert_allclose(
@@ -161,7 +161,7 @@ def test_wilson_loop_1x1_is_plaquette(key):
 def test_wilson_loop_stokes_identity(key):
     """Box-sum of plaquette angles == explicit boundary-link sum (abelian
     Stokes), at every site, for a generic random configuration."""
-    from l2hmc_tpu.lattice import wilson_loop_sums
+    from l2hmc.lattice import wilson_loop_sums
 
     r, t = 3, 2
     links = to_links(random_links(key, 2, SHAPE), SHAPE)
@@ -187,8 +187,8 @@ def test_wilson_loop_stokes_identity(key):
 def test_wilson_loop_area_law(key):
     """Metropolis ensemble at beta=2 reproduces <W(RxT)> = (I1/I0)^{RT} and
     the Creutz ratio -log(I1/I0)."""
-    from l2hmc_tpu.lattice import creutz_ratio, wilson_loop, wilson_loop_exact
-    from l2hmc_tpu.lattice.metropolis import metropolis_sweep
+    from l2hmc.lattice import creutz_ratio, wilson_loop, wilson_loop_exact
+    from l2hmc.lattice.metropolis import metropolis_sweep
 
     beta = 2.0
     links = to_links(random_links(key, 16, SHAPE), SHAPE)
@@ -212,7 +212,7 @@ def test_wilson_loop_area_law(key):
 
 def test_improved_action_reduces_to_wilson(key):
     """c1=0 improved action == Wilson action exactly."""
-    from l2hmc_tpu.lattice.u1 import improved_action
+    from l2hmc.lattice.u1 import improved_action
 
     links = jax.random.uniform(key, (4, 6, 6, 2), minval=-np.pi, maxval=np.pi)
     np.testing.assert_allclose(
@@ -224,7 +224,7 @@ def test_improved_action_reduces_to_wilson(key):
 
 def test_improved_action_gauge_invariance(key):
     """Rectangle sums close, so the improved action is gauge invariant."""
-    from l2hmc_tpu.lattice.u1 import improved_action
+    from l2hmc.lattice.u1 import improved_action
 
     k1, k2 = jax.random.split(key)
     links = jax.random.uniform(k1, (3, 8, 8, 2), minval=-np.pi, maxval=np.pi)
@@ -252,8 +252,8 @@ def test_improved_action_strong_coupling(key):
     result at coupling c0*beta.  Anchors the sign/normalization of the
     rectangle sums against an analytic value.
     """
-    from l2hmc_tpu.dynamics.hmc import hmc_chain
-    from l2hmc_tpu.lattice.u1 import make_improved_potential_fn, wrap
+    from l2hmc.dynamics.hmc import hmc_chain
+    from l2hmc.lattice.u1 import make_improved_potential_fn, wrap
 
     beta, c1 = 0.2, -1.0 / 12.0
     shape = LatticeShape(6, 6)
@@ -278,8 +278,8 @@ def test_topological_susceptibility_exact_oracle(key):
     error" target; charge tunneling is fast at beta=2 on 4x4, so the MC
     estimate is tight.
     """
-    from l2hmc_tpu.lattice.metropolis import metropolis_sweep
-    from l2hmc_tpu.lattice.u1 import topological_susceptibility_exact
+    from l2hmc.lattice.metropolis import metropolis_sweep
+    from l2hmc.lattice.u1 import topological_susceptibility_exact
 
     shape = LatticeShape(4, 4)
     beta = 2.0

@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.networks.nets import (
+from l2hmc.networks.nets import (
     ConvNetSpec,
     MLPNetSpec,
     make_conv_net,
@@ -82,7 +82,7 @@ def test_conv_translation_covariant_trunk(key):
     translations (up to the stride-2 coset): translating the input field by
     the stride shifts the conv features identically.  This is the toroidal
     geometry property the reference's zero-padding breaks."""
-    from l2hmc_tpu.networks.nets import _grouped_conv, _conv_init
+    from l2hmc.networks.nets import _grouped_conv, _conv_init
 
     p = _conv_init(key, 3, 3, 2, 4)
     img = jax.random.normal(key, (1, 8, 8, 2))
@@ -126,7 +126,7 @@ def test_bf16_compute_close_to_f32(key):
 
 def test_lrn_variant(key):
     """ConvNet2D parity: LRN between conv stages (conv_net.py:466-478)."""
-    from l2hmc_tpu.networks.nets import local_response_norm
+    from l2hmc.networks.nets import local_response_norm
 
     x = jax.random.normal(key, (2, 4, 4, 8))
     y = local_response_norm(x)
@@ -167,7 +167,7 @@ def _roll_links_flat(flat, lt, lx, n_ch, st, sx):
 
 
 def test_local_net_shapes_and_identity_init(key):
-    from l2hmc_tpu.networks.nets import LocalNetSpec, make_local_net
+    from l2hmc.networks.nets import LocalNetSpec, make_local_net
 
     spec = LocalNetSpec(time_size=6, space_size=4, channels=8, factor=2.0)
     init, apply = make_local_net(spec)
@@ -193,7 +193,7 @@ def test_local_net_shapes_and_identity_init(key):
 def test_local_net_translation_equivariance(key):
     """Rolling the input fields on the torus rolls the S/T/Q outputs —
     the property the dense-trunk nets structurally lack."""
-    from l2hmc_tpu.networks.nets import LocalNetSpec, make_local_net
+    from l2hmc.networks.nets import LocalNetSpec, make_local_net
 
     lt, lx = 6, 4
     spec = LocalNetSpec(time_size=lt, space_size=lx, channels=8,
@@ -221,7 +221,7 @@ def test_local_flat_net_identity_init_and_equivariance(key):
     """Flat-layout stencil edition (r4): same API and properties as the
     image local net — near-identity init, volume-independent params,
     exact translation equivariance — with zero flat<->NHWC round trips."""
-    from l2hmc_tpu.networks.nets import LocalNetSpec, make_local_flat_net
+    from l2hmc.networks.nets import LocalNetSpec, make_local_flat_net
 
     lt, lx = 6, 4
     spec = LocalNetSpec(time_size=lt, space_size=lx, channels=8,
@@ -257,7 +257,7 @@ def test_local_flat_net_identity_init_and_equivariance(key):
 def test_local_net_trains_on_gauge(key):
     """Short 8x8 training run with the local conditioner: loss falls and
     acceptance stays alive (the dead-gradient trap would pin it at 0)."""
-    from l2hmc_tpu.train.gauge import (
+    from l2hmc.train.gauge import (
         GaugeConfig, init_train_state, make_train_chunk,
     )
 

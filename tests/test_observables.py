@@ -6,7 +6,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from l2hmc_tpu.analysis.observables import (
+from l2hmc.analysis.observables import (
     analyze_observable_traces,
     analyze_run,
     load_run,
@@ -50,7 +50,7 @@ def test_analyze_traces(run_dir):
     assert out["charges"]["susceptibility"] > 0
     assert out["charges"]["tunneling_rate"] > 0
     # pooled multi-chain estimators ship next to the single-trace numbers
-    # (VERDICT r4 item 2); iid-ish synthetic data -> tau_pooled ~ 1
+    # iid-ish synthetic data -> tau_pooled ~ 1
     assert out["charges"]["tau_int_pooled"] == pytest.approx(1.0, abs=0.5)
     assert out["charges"]["tau_int_pooled_reliable"] is True
     assert 0 < out["charges"]["ess_per_sample_pooled"] <= 1.0
@@ -72,7 +72,7 @@ def test_analyze_run_writes_json(run_dir):
 
 
 def test_plots(run_dir):
-    from l2hmc_tpu.analysis.plots import make_run_plots
+    from l2hmc.analysis.plots import make_run_plots
 
     written = make_run_plots(run_dir, exact_plaq=0.6978)
     assert len(written) >= 5

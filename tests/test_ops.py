@@ -1,13 +1,13 @@
-"""Tests for the fused Wilson-action ops: analytic VJP vs autodiff, and the
-Pallas kernel vs both (Pallas path runs in interpreter mode on CPU)."""
+"""Tests for the Wilson-action ops (analytic VJP vs autodiff) and the
+small-matrix group math."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.lattice import u1
-from l2hmc_tpu.ops import wilson
+from l2hmc.lattice import u1
+from l2hmc.ops import wilson
 
 
 def _random_links(key, b=4, lt=8, lx=8):
@@ -75,28 +75,13 @@ def test_second_order_through_analytic_vjp(key):
     np.testing.assert_allclose(h, h_ref, rtol=1e-3, atol=1e-4)
 
 
-def test_pallas_kernel_interpret_mode(key):
-    """Pallas Wilson kernel math (forward + analytic backward) verified in
-    interpreter mode on any backend."""
-    links = _random_links(key, b=8, lt=8, lx=8)
-    a_pl = wilson.wilson_action_pallas(links, interpret=True)
-    np.testing.assert_allclose(
-        np.asarray(a_pl), np.asarray(u1.wilson_action(links)), rtol=1e-5, atol=1e-5
-    )
-    g_pl = jax.grad(
-        lambda l: jnp.sum(wilson.wilson_action_pallas(l, interpret=True))
-    )(links)
-    g_ref = jax.grad(lambda l: jnp.sum(u1.wilson_action(l)))(links)
-    np.testing.assert_allclose(np.asarray(g_pl), np.asarray(g_ref), rtol=1e-4, atol=1e-5)
-
-
 class TestSUMatrixOps:
-    """TPU-friendly matmul-only group math vs generic linalg."""
+    """Matmul-only small-matrix group math vs generic linalg."""
 
     def test_expm_su2_matches_pade(self):
         import jax
-        from l2hmc_tpu.lattice.sun import generators
-        from l2hmc_tpu.ops.su_matrix import expm_su2
+        from l2hmc.lattice.sun import generators
+        from l2hmc.ops.su_matrix import expm_su2
 
         key = jax.random.PRNGKey(0)
         gens = generators(2)
@@ -108,8 +93,8 @@ class TestSUMatrixOps:
 
     def test_expm_taylor_matches_pade_su3(self):
         import jax
-        from l2hmc_tpu.lattice.sun import generators
-        from l2hmc_tpu.ops.su_matrix import expm_taylor
+        from l2hmc.lattice.sun import generators
+        from l2hmc.ops.su_matrix import expm_taylor
 
         key = jax.random.PRNGKey(1)
         gens = generators(3)
@@ -121,8 +106,8 @@ class TestSUMatrixOps:
 
     def test_polar_reunitarize_projects_to_sun(self):
         import jax
-        from l2hmc_tpu.lattice.sun import is_unitary, random_sun
-        from l2hmc_tpu.ops.su_matrix import _det_small, polar_reunitarize
+        from l2hmc.lattice.sun import is_unitary, random_sun
+        from l2hmc.ops.su_matrix import _det_small, polar_reunitarize
 
         key = jax.random.PRNGKey(2)
         u = random_sun(key, 3, (16,), scale=0.8)

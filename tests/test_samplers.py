@@ -6,21 +6,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.lattice import u1
-from l2hmc_tpu.lattice.ising import ising_chain, ising_energy
-from l2hmc_tpu.lattice.metropolis import metropolis_chain, metropolis_sweep
-from l2hmc_tpu.lattice.sun import (
+from l2hmc.lattice import u1
+from l2hmc.lattice.ising import ising_chain, ising_energy
+from l2hmc.lattice.metropolis import metropolis_chain, metropolis_sweep
+from l2hmc.lattice.sun import (
     generators,
     is_unitary,
     random_sun,
     sun_action,
     sun_plaquette,
 )
-from l2hmc_tpu.dynamics.ais import ais_log_weights, log_mean_exp
-from l2hmc_tpu.dynamics.nuts import nuts_chain, nuts_transition
-from l2hmc_tpu.dynamics.smc import smc_beta_ladder, systematic_resample
-from l2hmc_tpu.dynamics.hmc import hmc_transition
-from l2hmc_tpu.targets import Gaussian
+from l2hmc.dynamics.ais import ais_log_weights, log_mean_exp
+from l2hmc.dynamics.nuts import nuts_chain, nuts_transition
+from l2hmc.dynamics.smc import smc_beta_ladder, systematic_resample
+from l2hmc.dynamics.hmc import hmc_transition
+from l2hmc.targets import Gaussian
 
 
 def test_metropolis_plaquette_matches_oracle(key):
@@ -42,7 +42,7 @@ def test_metropolis_plaquette_matches_oracle(key):
 def test_metropolis_thermalize_reaches_oracle(key):
     """`thermalize` (the --eval_init metropolis warm start) drives cold
     flat configs to the exact plaquette at beta=4 on 8x8."""
-    from l2hmc_tpu.lattice.metropolis import thermalize
+    from l2hmc.lattice.metropolis import thermalize
 
     shape = u1.LatticeShape(8, 8)
     x0 = jnp.zeros((8, shape.x_dim))  # cold start
@@ -55,7 +55,7 @@ def test_metropolis_thermalize_reaches_oracle(key):
 def test_metropolis_local_action_consistent(key):
     """Accepting a proposal changes the global Wilson action by exactly the
     local delta used in the accept test (validates the staple algebra)."""
-    from l2hmc_tpu.lattice.metropolis import local_action
+    from l2hmc.lattice.metropolis import local_action
 
     shape = u1.LatticeShape(6, 6)
     links = u1.to_links(u1.random_links(key, 1, shape), shape)

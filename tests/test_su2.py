@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.lattice import su2
-from l2hmc_tpu.lattice.sun import sun_action, sun_plaquette
-from l2hmc_tpu.dynamics.su2_hmc import su2_hmc_chain, su2_hmc_transition
+from l2hmc.lattice import su2
+from l2hmc.lattice.sun import sun_action, sun_plaquette
+from l2hmc.dynamics.su2_hmc import su2_hmc_chain, su2_hmc_transition
 
 
 def test_quaternion_algebra(key):

@@ -11,9 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from l2hmc_tpu.lattice import su2
-from l2hmc_tpu.lattice.sun import is_unitary, random_sun
-from l2hmc_tpu.dynamics.sun_hmc import (
+from l2hmc.lattice import su2
+from l2hmc.lattice.sun import is_unitary, random_sun
+from l2hmc.dynamics.sun_hmc import (
     _reunitarize,
     sun_hmc_chain,
     sun_hmc_transition,

@@ -8,15 +8,15 @@ import numpy as np
 import optax
 import pytest
 
-from l2hmc_tpu.dynamics.sun_hmc import sun_plaq_exact
-from l2hmc_tpu.dynamics.sun_l2hmc import (
+from l2hmc.dynamics.sun_hmc import sun_plaq_exact
+from l2hmc.dynamics.sun_l2hmc import (
     SUNL2HMCConfig,
     init_sun_l2hmc,
     make_sun_dynamics,
     make_sun_train_step,
     plaq_trace_distance,
 )
-from l2hmc_tpu.lattice.sun import random_sun, sun_plaquette
+from l2hmc.lattice.sun import random_sun, sun_plaquette
 
 
 CFG = SUNL2HMCConfig(n=2, num_steps=3, eps_init=0.15, hidden=16)
@@ -117,9 +117,9 @@ def test_training_beats_hmc_mixing(key):
 
 def test_pair_representation_matches_complex(key):
     """real_pairs=True follows the same trajectory as the complex kernel
-    under the same keys (the TPU runtime rejects complex dtypes; the pair
-    form must be the same sampler, not just similar)."""
-    from l2hmc_tpu.ops import cmat
+    under the same keys (the pair form must be the same sampler, not just
+    similar)."""
+    from l2hmc.ops import cmat
 
     cfg_c = SUNL2HMCConfig(n=2, num_steps=2, eps_init=0.12, hidden=8)
     cfg_p = cfg_c._replace(real_pairs=True)
@@ -142,9 +142,9 @@ def test_pair_representation_matches_complex(key):
 def test_pair_training_step_runs(key):
     """One ESJD train step in pair mode: finite loss, kernel stays on the
     group."""
-    from l2hmc_tpu.lattice import sun_nd
-    from l2hmc_tpu.lattice.sun import is_unitary
-    from l2hmc_tpu.ops import cmat
+    from l2hmc.lattice import sun_nd
+    from l2hmc.lattice.sun import is_unitary
+    from l2hmc.ops import cmat
 
     cfg = SUNL2HMCConfig(n=3, num_steps=2, eps_init=0.1, hidden=8,
                          real_pairs=True)

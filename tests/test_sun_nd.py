@@ -13,7 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.lattice import sun, sun_nd
+from l2hmc.lattice import sun, sun_nd
 
 
 @pytest.fixture
@@ -90,7 +90,7 @@ def test_4d_su3_improved_hmc_runs(key):
 
 def test_pair_actions_match_complex(key):
     """The float32 (re,im)-pair forms equal the complex forms exactly."""
-    from l2hmc_tpu.ops import cmat
+    from l2hmc.ops import cmat
 
     links = sun_nd.random_links_nd(key, 3, batch=2, dims=(3, 3, 3), scale=0.5)
     pairs = cmat.to_pairs(links)
@@ -106,8 +106,8 @@ def test_pair_actions_match_complex(key):
 
 
 def test_pair_group_ops_match_complex(key):
-    from l2hmc_tpu.lattice.sun import generators
-    from l2hmc_tpu.ops import cmat, su_matrix
+    from l2hmc.lattice.sun import generators
+    from l2hmc.ops import cmat, su_matrix
 
     for n in (2, 3):
         gens = generators(n)

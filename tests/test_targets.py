@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.targets import (
+from l2hmc.targets import (
     GMM,
     Gaussian,
     GaussianFunnel,
@@ -91,7 +91,7 @@ def test_gmm_sampling_modes(key):
 def test_gmm_arrangements(key):
     """Reference mean-arrangement zoo (mog_model.py:1040-1112):
     single_axis / axes (one per axis) / diagonal."""
-    from l2hmc_tpu.targets import gmm_diagonal, gmm_one_per_axis, gmm_single_axis
+    from l2hmc.targets import gmm_diagonal, gmm_one_per_axis, gmm_single_axis
 
     sa = gmm_single_axis(4, sep=2.0, var=0.1)
     np.testing.assert_allclose(

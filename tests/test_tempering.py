@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.dynamics import tempering
-from l2hmc_tpu.dynamics.hmc import hmc_chain
-from l2hmc_tpu.lattice import u1
+from l2hmc.dynamics import tempering
+from l2hmc.dynamics.hmc import hmc_chain
+from l2hmc.lattice import u1
 
 SHAPE = u1.LatticeShape(8, 8)
 POT = u1.make_potential_fn(SHAPE)

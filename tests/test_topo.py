@@ -1,5 +1,5 @@
 """Instanton-hop (winding proposal) tests: exactness of the move family
-that wins the topological channel (VERDICT r3 item 1).
+that wins the topological channel.
 
 The hop is only useful if it is *exact* — a biased global move would
 corrupt every observable while "improving" tunneling.  These tests pin:
@@ -14,9 +14,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.dynamics import topo
-from l2hmc_tpu.dynamics.hmc import hmc_chain, hmc_transition
-from l2hmc_tpu.lattice import u1
+from l2hmc.dynamics import topo
+from l2hmc.dynamics.hmc import hmc_chain, hmc_transition
+from l2hmc.lattice import u1
 
 SHAPE = u1.LatticeShape(8, 8)
 
@@ -112,7 +112,7 @@ def test_hop_acceptance_rises_with_volume(key):
 
 
 def test_hop_eval_chunk_metrics(key):
-    from l2hmc_tpu.train.gauge import GaugeConfig, init_train_state
+    from l2hmc.train.gauge import GaugeConfig, init_train_state
 
     cfg = GaugeConfig(time_size=8, space_size=8, num_chains=4, num_steps=2,
                       hmc=True, network_arch="zero", eps_init=0.15,

@@ -8,22 +8,22 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.analysis import stats
-from l2hmc_tpu.lattice import u1
-from l2hmc_tpu.targets import scg_2d, gmm_axes
-from l2hmc_tpu.train.gauge import (
+from l2hmc.analysis import stats
+from l2hmc.lattice import u1
+from l2hmc.targets import scg_2d, gmm_axes
+from l2hmc.train.gauge import (
     GaugeConfig,
     init_train_state,
     make_eval_chunk,
     make_train_chunk,
 )
-from l2hmc_tpu.train.sampler import (
+from l2hmc.train.sampler import (
     SamplerConfig,
     init_sampler_state,
     make_sample_chain,
     make_sampler_train_chunk,
 )
-from l2hmc_tpu.dynamics.hmc import hmc_chain
+from l2hmc.dynamics.hmc import hmc_chain
 
 
 def test_scg_training_beats_initial_loss(key):
@@ -121,7 +121,7 @@ def test_train_hops_moves_training_chain_sectors(key):
     training chain: the chain must visit multiple Q sectors where the
     plain L2HMC training chain at the same (tiny) depth barely tunnels,
     and the hop must keep states wrapped/finite (the beta>=5
-    frozen-training-distribution fix, RESULTS.md r4)."""
+    frozen-training-distribution fix)."""
     base = GaugeConfig(time_size=4, space_size=4, num_chains=32, num_steps=2,
                        network_arch="mlp", num_hidden=16, train_steps=60,
                        beta_init=2.0, beta_final=2.0)
@@ -223,8 +223,8 @@ def test_loss_z_term_parity_modes(key):
     reconstruction from the same transitions, and that charge_reward flips
     exactly the charge term's sign.
     """
-    from l2hmc_tpu.train import losses
-    from l2hmc_tpu.train.gauge import build_dynamics, make_loss_fn
+    from l2hmc.train import losses
+    from l2hmc.train.gauge import build_dynamics, make_loss_fn
 
     base = GaugeConfig(time_size=4, space_size=4, num_chains=16, num_steps=2,
                        network_arch="mlp", num_hidden=16)
@@ -275,7 +275,7 @@ def test_loss_z_term_parity_modes(key):
 
 
 def test_beta_annealing_schedule():
-    from l2hmc_tpu.train.schedules import beta_schedule
+    from l2hmc.train.schedules import beta_schedule
 
     b0 = float(beta_schedule(0, 100, 2.0, 4.0))
     bT = float(beta_schedule(100, 100, 2.0, 4.0))
@@ -302,8 +302,8 @@ def test_gauge_improved_action_trains(key):
 def test_plaq_metric_loss(key):
     """The observable-space ESJD metric (metric='plaq_cos'): loss matches a
     manual plaquette-field reconstruction and trains without NaNs."""
-    from l2hmc_tpu.train import losses
-    from l2hmc_tpu.train.gauge import build_dynamics, make_loss_fn
+    from l2hmc.train import losses
+    from l2hmc.train.gauge import build_dynamics, make_loss_fn
 
     cfg = GaugeConfig(time_size=4, space_size=4, num_chains=16, num_steps=2,
                       network_arch="mlp", num_hidden=16, metric="plaq_cos",
@@ -347,8 +347,8 @@ def test_plaq_metric_loss(key):
 def test_eps_fixed_training_freezes_eps(key):
     """--eps_fixed path (the round-2 champion recipe): raw_eps must stay
     bit-identical through training while the conditioners move."""
-    from l2hmc_tpu.dynamics.l2hmc import get_eps
-    from l2hmc_tpu.train.gauge import build_dynamics
+    from l2hmc.dynamics.l2hmc import get_eps
+    from l2hmc.train.gauge import build_dynamics
 
     cfg = GaugeConfig(time_size=4, space_size=4, num_chains=16, num_steps=2,
                       network_arch="mlp", num_hidden=16, train_steps=60,
@@ -369,9 +369,9 @@ def test_eps_fixed_training_freezes_eps(key):
 
 
 def test_train_to_convergence_retrains_on_low_acceptance(key):
-    """Detect-and-retrain (VERDICT r4 item 3): an unreachable acceptance
+    """Detect-and-retrain: an unreachable acceptance
     threshold forces every retry; threshold off -> exactly one attempt."""
-    from l2hmc_tpu.train.gauge import GaugeConfig, train_to_convergence
+    from l2hmc.train.gauge import GaugeConfig, train_to_convergence
 
     cfg = GaugeConfig(time_size=4, space_size=4, num_chains=8, num_steps=2,
                       network_arch="mlp", num_hidden=8, train_steps=4,

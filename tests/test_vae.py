@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.train.vae import (
+from l2hmc.train.vae import (
     VAEConfig,
     build_vae,
     load_digits_binarized,
@@ -59,7 +59,7 @@ def test_posterior_sampler_conditions_on_data(key):
 
 
 def test_ais_log_likelihood_finite(key):
-    from l2hmc_tpu.train.vae import ais_log_likelihood
+    from l2hmc.train.vae import ais_log_likelihood
 
     x = load_digits_binarized()[:16]
     init, fns = build_vae(CFG)
@@ -80,7 +80,7 @@ def test_ais_linear_gaussian_exact(key):
     ``ais_log_likelihood`` must reproduce it with NO additive normalization
     (the (2pi)^(d/2) prior normalizers cancel — see the note in vae.py).
     """
-    from l2hmc_tpu.train.vae import VAEParams, ais_log_likelihood
+    from l2hmc.train.vae import VAEParams, ais_log_likelihood
 
     d_lat, d_obs, sigma = 2, 3, 0.8
     rng = np.random.default_rng(0)
@@ -123,7 +123,7 @@ def test_ais_linear_gaussian_exact(key):
 def test_normal_kl():
     """normal_kl (func_utils.py:77-96 parity) against the closed form and
     the zero case."""
-    from l2hmc_tpu.train.vae import normal_kl
+    from l2hmc.train.vae import normal_kl
 
     rng = np.random.default_rng(1)
     qm = jnp.asarray(rng.normal(size=(5, 3)), jnp.float32)
@@ -167,7 +167,7 @@ def test_random_lf_composition_trains(key):
 def test_posterior_sampler_autocovariance(key):
     """eval_sampler.py parity: mixing diagnostics of the trained posterior
     sampler are finite and acceptance is healthy."""
-    from l2hmc_tpu.train.vae import (
+    from l2hmc.train.vae import (
         VAEConfig, build_vae, posterior_sampler_autocovariance,
     )
 

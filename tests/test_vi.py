@@ -6,14 +6,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from l2hmc_tpu.dynamics.vi import (
+from l2hmc.dynamics.vi import (
     fit_fullrank,
     fit_meanfield,
     fullrank_covariance,
     fullrank_sample,
     meanfield_sample,
 )
-from l2hmc_tpu.targets import scg_2d
+from l2hmc.targets import scg_2d
 
 
 def test_meanfield_isotropic_gaussian(key):

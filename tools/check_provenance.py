@@ -1,10 +1,8 @@
 #!/usr/bin/env python
 """Cross-check every runs/ artifact cited in the docs against the tree.
 
-The round-4 -> round-5 handoff showed the working tree is ephemeral:
-campaign JSONs cited by RESULTS.md were lost with it.  Artifacts are now
-tracked in git (.gitignore whitelists runs/**/*.json); this checker makes
-the contract auditable:
+The working tree is ephemeral: an artifact a doc cites must live in git,
+or the citation dangles.  This checker makes the contract auditable:
 
   python tools/check_provenance.py          # report
   python tools/check_provenance.py --strict # exit 1 on missing citations
@@ -22,8 +20,8 @@ import re
 import sys
 from pathlib import Path
 
-DOCS = ["RESULTS.md", "README.md", "BASELINE.md", "MIGRATION.md",
-        "PARITY.md", "docs/DESIGN.md"]
+DOCS = ["README.md", "BASELINE.md", "MIGRATION.md", "PARITY.md",
+        "docs/DESIGN.md", "PERF.md"]
 
 CITE_RE = re.compile(r"runs/[A-Za-z0-9_.*{},/]+")
 
